@@ -1,5 +1,4 @@
-"""Group-DP + spliced throughput probes (feeds bench.py extras and
-PERF.md numbers)."""
+"""Group-DP + spliced throughput probes (bench.py --group / --spliced)."""
 import time
 import numpy as np
 
@@ -36,38 +35,21 @@ def group_dp_gcups(reps=3):
         t0 = time.perf_counter()
         gops.group_align_batch(pairs, mtx, u=2.0, v=9.0, sh=sh, pads=(8, L))
         best = min(best, time.perf_counter() - t0)
-    # device-only split: same batch, fetch scores only
+    # device-only split: same batch, DP fill only
     import jax
-    from prrn_aln_tpu.ops.window import stripe as _stripe
-    wdws = [_stripe(A.length, B.length, sh) for A, B in pairs]
+    import jax.numpy as jnp
+    wdws = [stripe(A.length, B.length, sh) for A, B in pairs]
     an_pad = 8
     la_max = lb_max = gops._bucket(L)
     nslot = gops._bucket(max(w.up - w.lw + 3 for w in wdws), 128)
     nsteps = gops._bucket(max(A.length + B.length + 1 for A, B in pairs), 256)
     ins = [gops._pack_inputs(A, B, mtx, 2.0, 9.0, w, an_pad, la_max, lb_max)
            for (A, B), w in zip(pairs, wdws)]
-    import jax.numpy as jnp
-    if gops._pallas_batch_enabled(None):
-        from prrn_aln_tpu.ops import pallas_group as pg
-        nslot = gops._bucket(nslot, 128)
-        nsteps = gops._bucket(nsteps, pg.DSTEP)
-        pk = [pg.pack_pair(x[0], x[1], x[2], x[3], x[4:16], int(x[16]),
-                           int(x[17]), w, float(x[20]), float(x[21]))
-              for x, w in zip(ins, wdws)]
-        prm = jnp.stack([p for p, _, _ in pk])
-        FA = jnp.stack([f for _, f, _ in pk])
-        FB = jnp.stack([f for _, _, f in pk])
-        kw = dict(an=an_pad, bn=an_pad, Cp=pg._pad_to(ins[0][0].shape[1], 8),
-                  nslot=nslot, nsteps=nsteps, la_max=la_max, lb_max=lb_max)
-        np.asarray(pg._launch(prm, FA, FB, **kw)[0])
-        t0 = time.perf_counter(); np.asarray(pg._launch(prm, FA, FB, **kw)[0])
-    else:
-        batched = [jnp.stack([x[k] for x in ins]) for k in range(len(ins[0]))]
-        vm = jax.jit(jax.vmap(lambda *args: gops._wavefront_from_profiles(
-            *args, nslot=nslot, nsteps=nsteps, an=an_pad, bn=an_pad,
-            la_max=la_max, lb_max=lb_max)[0]))
-        np.asarray(vm(*batched))
-        t0 = time.perf_counter(); np.asarray(vm(*batched))
+    batched = [jnp.stack([x[k] for x in ins]) for k in range(len(ins[0]))]
+    vm = gops._batch_fn(nslot, nsteps, an_pad, an_pad, la_max, lb_max)
+    jax.block_until_ready(vm(*batched))
+    t0 = time.perf_counter()
+    jax.block_until_ready(vm(*batched))
     dev = time.perf_counter() - t0
     print("group-DP device-only: %.1f ms/batch" % (dev * 1e3), flush=True)
     w = stripe(L, L, sh)
@@ -78,34 +60,27 @@ def group_dp_gcups(reps=3):
 
 
 def spliced_gcups(reps=2):
-    """Spliced fwd2h device-kernel throughput on a 8kb x 360aa window."""
-    from prrn_aln_tpu import alphabet as ab
+    """Spliced fwd2h end-to-end throughput on a 8kb x 360aa window."""
     from prrn_aln_tpu.splice.hapi import spliced_align_h
     rng = np.random.default_rng(5)
     gen = "".join(rng.choice(list("ACGT"), size=8192))
     aa = "".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), size=360))
-    t = spliced_align_h
-    try:
-        t(gen, aa)                      # warm-up (compile)
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            t(gen, aa)
-            best = min(best, time.perf_counter() - t0)
-        cells = len(gen) * len(aa)
-        return cells / best / 1e9, best
-    except Exception as e:
-        print("spliced probe failed:", e)
-        return None, None
+    spliced_align_h(gen, aa)            # warm-up (compile)
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        spliced_align_h(gen, aa)
+        best = min(best, time.perf_counter() - t0)
+    cells = len(gen) * len(aa)
+    return cells / best / 1e9, best
 
 
 if __name__ == "__main__":
     import sys
     if "spliced" in sys.argv:
         s, ts = spliced_gcups()
-        if s is not None:
-            print("spliced: %.3f GCUPS (%.1f ms)" % (s, ts * 1e3), flush=True)
+        print("spliced: %.3f GCUPS (%.1f ms)" % (s, ts * 1e3), flush=True)
     else:
-        g, t = group_dp_gcups()
+        g, t, _, _ = group_dp_gcups()
         print("group-DP: %.3f GCUPS (%.1f ms/batch)" % (g, t * 1e3),
               flush=True)

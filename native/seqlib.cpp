@@ -1,9 +1,9 @@
 // Native host-side runtime: fast sequence scanning/encoding, k-mer
 // counting, and a formatted random-access sequence database.
 //
-// This is the TPU framework's equivalent of the reference suite's native
+// This is the framework's equivalent of the reference suite's native
 // I/O / DB layer (reference: src/dbs.{h,cc} formatted DB, src/makdbs.cc
-// builder, src/bitpat.cc word streams) — the compute path is JAX/Pallas,
+// builder, src/bitpat.cc word streams) — the compute path is JAX,
 // but bulk host work (parsing gigabyte FASTA, word counting for the
 // sl-forest filter, DB spill files) stays in C++.
 //

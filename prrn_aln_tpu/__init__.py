@@ -1,9 +1,9 @@
-"""prrn_aln_tpu — TPU-native sequence-alignment framework.
+"""prrn_aln_tpu — sequence-alignment framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of Osamu Gotoh's
+A from-scratch JAX/XLA re-design of the capabilities of Osamu Gotoh's
 ``aln``/``prrn5`` suite (pairwise, group-to-group and multiple sequence
-alignment with doubly-nested randomized iterative refinement), built
-TPU-first: batched anti-diagonal wavefront DP kernels, MXU profile scoring,
+alignment with doubly-nested randomized iterative refinement): batched
+anti-diagonal wavefront DP engines, device-built profile score images,
 and ``jax.sharding`` data-parallel orchestration instead of pthreads.
 
 Reference behavior studied from ogotoh/prrn_aln (see SURVEY.md); no code is
@@ -14,22 +14,23 @@ __version__ = "0.1.0"
 
 import os as _os
 
-# Persistent XLA compilation cache (opt-in via PRRN_ALN_TPU_CACHE=dir):
-# CLI processes are short-lived and repay kernel compiles each run, but
-# on tunneled/remote-compile devices the cache round-trips can cost
-# more than the compiles, so it is not enabled by default.
-try:
-    import jax as _jax
+import jax as _jax
 
-    _cache = _os.environ.get("PRRN_ALN_TPU_CACHE", "")
-    if _cache and _cache != "0":
-        _os.makedirs(_cache, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                           0.1)
-        _jax.config.update("jax_persistent_cache_min_entry_size_bytes",
-                           -1)
-except Exception:                                    # pragma: no cover
-    pass
+# checkout-local persistent compilation cache at a fixed path (the path is
+# part of the cache key); JAX reads JAX_COMPILATION_CACHE_DIR itself, so
+# when that is set no directory is configured here
+CACHE_DIR = _os.path.join(_os.path.dirname(_os.path.dirname(
+    _os.path.abspath(__file__))), ".jax_cache")
 
-from . import alphabet, config, scoring  # noqa: F401
+
+def _configure_compile_cache() -> None:
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    # short-lived CLI processes repay their compiles on every run
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    _jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+
+
+_configure_compile_cache()
+
+from . import alphabet, config, scoring  # noqa: E402,F401

@@ -124,7 +124,7 @@ def prrn_main(argv=None) -> int:
     maybe_init_distributed()   # multi-host DCN (no-op 1-host)
     p = argparse.ArgumentParser(
         prog="prrn",
-        description="TPU-native multiple sequence alignment with "
+        description="multiple sequence alignment with "
                     "randomized iterative refinement")
     p.add_argument("inputs", nargs="*", help="sequence files")
     p.add_argument("-u", type=float, default=None, help="gap extension")
@@ -384,7 +384,7 @@ def aln_main(argv=None) -> int:
     argv = split
     p = argparse.ArgumentParser(
         prog="aln",
-        description="TPU-native pairwise / group-to-group alignment")
+        description="pairwise / group-to-group alignment")
     p.add_argument("inputs", nargs="*", help="sequence/MSA files "
                    "(two, unless -a/-b/-i)")
     p.add_argument("-a", action="store_true",

@@ -184,7 +184,7 @@ def _word_lists(seq_codes, molc: int, k=None, seeds=None, nalpha: int = 0):
 
 
 def _device_overlap(per_seed, n: int) -> tuple[np.ndarray, np.ndarray]:
-    """All-pairs min-overlap matrix on the MXU.
+    """All-pairs min-overlap matrix as device matmuls.
 
     min(a, b) = sum_t [a>=t][b>=t], so the pair overlap matrix is a sum
     of 0/1 indicator Gram matmuls — exact in bf16 x bf16 -> f32
@@ -248,7 +248,7 @@ def kmer_distance_matrix(seq_codes: list[np.ndarray], molc: int,
     """Condensed all-pairs qdiv distances (x100 like the DP distances).
 
     Large inputs run the overlap pass as indicator matmuls on device
-    (O(N^2 V) MXU work instead of an O(N^2) host loop); small inputs
+    (O(N^2 V) matmul work instead of an O(N^2) host loop); small inputs
     keep the native host path (no compile/dispatch overhead)."""
     n = len(seq_codes)
     if n >= 48:

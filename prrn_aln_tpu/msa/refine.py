@@ -12,7 +12,7 @@ rir/onecycle/divideseq :413-666, Prrn ctor :688-781, preprrn :786-839):
 * stop after a full cycle (2N-3 partitions) without improvement, capped
   at ``maxitr`` cycles
 
-TPU mapping: each candidate realignment is one group-DP launch; the
+Device mapping: each candidate realignment is one group-DP launch; the
 speculative best-of-n thread fan-out (P3 in SURVEY §2.7) becomes a batch
 axis over partitions (deferred to the batched kernel).
 """

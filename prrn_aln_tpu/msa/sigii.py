@@ -9,7 +9,7 @@ group DP (src/fwd2c.h:306-312 via PfqItr::match_score, gsinfo.h:221-229),
 and the MSA-level WSP adds SpbFact * sum of pair weights over members
 sharing a junction column (src/gsinfo.cc:1147-1183 spSigII).
 
-Design difference from the reference (TPU-first): positions are stored
+Design difference from the reference: positions are stored
 per member in *ungapped* member-local tron coordinates, which are
 invariant under every alignment operation; alignment-column projections
 and per-column phase density arrays are derived on demand.  The

@@ -7,7 +7,7 @@ clustering with subtree-size caps; each subtree is aligned independently
 (progressive along its join tree + refinement) and the subtree profiles
 are combined, with leftover singletons cut in at the end.
 
-TPU mapping: the k-mer filter and candidate DP distances are batched
+Device mapping: the k-mer filter and candidate DP distances are batched
 device launches (P1/P4 in SURVEY §2.7); the forest bookkeeping is host
 side.  The reference's genome-block search (blksrc) is replaced by the
 k-mer nearest-neighbour filter — a deliberate selectivity-filter swap
@@ -65,39 +65,7 @@ def candidate_edges(seqs: list[np.ndarray], molc: int, mtx, u: float,
 
     # one batched DP-distance launch over the candidate pairs
     lens = [len(s) for s in seqs]
-    ma = max(lens)
-    padded = np.zeros((len(seqs), ma), np.int32)
-    for k, s in enumerate(seqs):
-        padded[k, :len(s)] = s
-    from ..ops.window import stripe
-    B = len(pairs)
-    ai = np.array([p[0] for p in pairs])
-    bi = np.array([p[1] for p in pairs])
-    la = np.array([lens[i] for i in ai], np.int32)
-    lb = np.array([lens[j] for j in bi], np.int32)
-    wdws = [stripe(lens[i], lens[j], sh) for i, j in pairs]
-    lw = np.array([w.lw for w in wdws], np.int32)
-    up = np.array([w.up for w in wdws], np.int32)
-    import jax as _jax
-    if _jax.default_backend() == "tpu":
-        # edge pass on the production Pallas kernel; PRRN_EDGE_SCREEN=
-        # bf16 opts into the 1-pass-MXU score screen (edge-selection
-        # exactness is soft, SURVEY A.8; exact DP rescoring happens on
-        # whatever groups the forest later aligns)
-        from ..ops.pallas_pairwise import pallas_pairwise_scores
-        lossy = os.environ.get("PRRN_EDGE_SCREEN") == "bf16"
-        scores = np.asarray(pallas_pairwise_scores(
-            padded[ai], padded[bi], la, lb, mtx, u, v,
-            lw=lw, up=up, lossy=lossy))
-    else:
-        from ..ops.pairwise import wavefront_scores
-        scores = np.asarray(wavefront_scores(
-            padded[ai], padded[bi], la, lb, lw, up, mtx,
-            np.full(B, u, np.float32), np.full(B, v, np.float32),
-            np.ones(B, np.float32), np.zeros((B, 4), bool),
-            nslot=int(max(w.width for w in wdws)),
-            nsteps=int((la + lb - 1).max()), dim=mtx.shape[0],
-            local=False))
+    scores = dmod.pair_scores(seqs, pairs, mtx, u, v, sh, mesh=mesh)
     selfs = np.array([float(mtx[s, s].sum()) for s in seqs])
     edges = []
     for k, (i, j) in enumerate(pairs):

@@ -9,8 +9,7 @@ weights factorize exactly over the LCA (``pwt[i,j] =
 wheight[i]*wheight[j] / vol[lca]^2``, phyl.cc:703-786), so the result
 equals the naive ``wsp.wsp_score(pairwt=...)`` to float precision while
 replacing the per-pair Python loop with per-node einsums (the
-substitution term is one frequency-profile contraction per node — MXU
-shaped) and a broadcast gap-run comparison (the ``crg`` counting of
+substitution term is one frequency-profile contraction per node) and a broadcast gap-run comparison (the ``crg`` counting of
 maln2.cc:510-530 evaluated on precomputed per-row gap-run lengths).
 
 The reference validates the same equivalence with its built-in

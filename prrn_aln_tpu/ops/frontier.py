@@ -1,9 +1,9 @@
 """Cross-chip band-frontier ring: ONE ultra-long banded pair split
 across devices (SURVEY §5.7 sequence-parallel analog).
 
-The band-packed row sweep (ops/pallas_pairwise.py formulation: lane j
-of row m holds column n = m + lw + j) is sharded along the BAND axis
-over a device mesh; each row exchanges only its shard-boundary state:
+The band-packed row sweep (lane j of row m holds column n = m + lw + j)
+is sharded along the BAND axis over a device mesh; each row exchanges
+only its shard-boundary state:
 
 * the vertical/diagonal predecessors of a shard's last lane live on
   the right neighbor's first lane -> one `ppermute` per row pulls the
@@ -15,8 +15,8 @@ over a device mesh; each row exchanges only its shard-boundary state:
 * the C term of a shard's first lane is the left neighbor's last-lane
   X -> one more `ppermute`.
 
-This is the ICI-scale recipe for pairs whose band exceeds one chip's
-VMEM/FLOP budget: collectives ride the mesh axis, state stays
+This is the recipe for pairs whose band exceeds one device's memory or
+FLOP budget: collectives ride the mesh axis, state stays
 device-resident, and the arithmetic is identical to the single-device
 sweep (validated exactly on the virtual CPU mesh by
 tests/test_frontier.py).  Reference role: the pthread wavefront
@@ -31,7 +31,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 NEVSEL = -1.0e30
 NEG_SENT = -(2 ** 31 // 8) * 7.0
@@ -143,8 +142,8 @@ def frontier_pairwise_score(a: np.ndarray, b: np.ndarray, lw: int,
         sc = jnp.max(jnp.where(n_last == lb - 1, last, NEVSEL))
         return jax.lax.pmax(sc, axis)
 
-    fn = shard_map(local, mesh=mesh, in_specs=(P(None, axis),),
-                   out_specs=P(), check_rep=False)
+    fn = jax.shard_map(local, mesh=mesh, in_specs=(P(None, axis),),
+                       out_specs=P(), check_vma=False)
     return float(jax.jit(fn)(jnp.asarray(s_rows)))
 
 

@@ -1,12 +1,13 @@
 """Batched banded anti-diagonal wavefront DP in JAX.
 
 Score-only affine-gap (Gotoh) pairwise alignment scanned along
-anti-diagonals — the TPU-native formulation of the reference's wavefront
+anti-diagonals — the device formulation of the reference's wavefront
 scorer (reference: src/fwd2d1.cc).  The band is a dense vector of diagonal
 slots r = n - m; every scan step updates the slots whose parity matches the
 current anti-diagonal under a validity mask, so all work is (batch, width)
-element-wise vector ops on the VPU, with the substitution lookup done as a
-flat gather from the (dim*dim) matrix.
+element-wise vector ops, with the substitution lookup done as a flat
+gather from the (dim*dim) matrix.  This is the one device engine of the
+distance and sl-forest edge passes (msa/distance.py).
 
 All shapes are static under ``jit``: pairs are padded to (max_len_a,
 max_len_b, max_width); per-pair lengths and band limits are traced scalars.

@@ -16,7 +16,7 @@ matching ``ops/spliced_np.spliced_align_np`` cell-for-cell:
   per-lane junction merges + donor positions) walked on the host into
   the same knot chain the oracle emits.
 
-The kernel runs in float32 on TPU; scores match the float64 oracle to
+The kernel runs in float32 on device; scores match the float64 oracle to
 ~1e-4 relative and paths are identical whenever score ties are not
 float-marginal.
 """

@@ -1,4 +1,4 @@
-"""Device (MXU indicator-matmul) k-mer distance pass vs the host loop.
+"""Device (indicator-matmul) k-mer distance pass vs the host loop.
 
 The sl-forest edge discovery must produce identical qdiv distances on
 either path (the overlap sum is exact integer arithmetic both ways).

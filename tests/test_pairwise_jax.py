@@ -70,3 +70,36 @@ def test_wavefront_batch_matches_reference(molc, local):
     mtx = PROT_MTX if molc == 1 else DNA_MTX
     got, want = _batchify(cases, mtx, local)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=0.05)
+
+
+@pytest.mark.parametrize("seed", [7, 8, 9])
+def test_ragged_banded_batch_matches_oracle(seed):
+    """Ragged lengths, per-pair stripes, free end-gap flags and a
+    terminal-gap factor in one batch: every pair's score equals the
+    NumPy oracle's."""
+    from prrn_aln_tpu.ops.pairwise_np import pairwise_score_np
+    rng = np.random.default_rng(seed)
+    B, L = 8, 80
+    a = rng.integers(3, 23, size=(B, L)).astype(np.int32)
+    b = rng.integers(3, 23, size=(B, L)).astype(np.int32)
+    la = rng.integers(30, L + 1, size=B).astype(np.int32)
+    lb = rng.integers(30, L + 1, size=B).astype(np.int32)
+    for i in range(B):
+        a[i, la[i]:] = 0
+        b[i, lb[i]:] = 0
+    wd = [stripe(int(la[i]), int(lb[i]), -60) for i in range(B)]
+    lw = np.array([w.lw for w in wd], np.int32)
+    up = np.array([w.up for w in wd], np.int32)
+    exg = rng.integers(0, 2, size=(B, 4)).astype(bool)
+    got = np.asarray(wavefront_scores(
+        a, b, la, lb, lw, up, PROT_MTX,
+        np.full(B, 2.0, np.float32), np.full(B, 9.0, np.float32),
+        np.full(B, 0.5, np.float32), exg,
+        nslot=int(max(w.width for w in wd)) + 2,
+        nsteps=int((la + lb).max()), dim=PROT_MTX.shape[0], local=False))
+    for i in range(B):
+        want = pairwise_score_np(
+            a[i, :la[i]], b[i, :lb[i]], PROT_MTX, 2.0, 9.0, wd[i],
+            tgapf=0.5, exgl_a=exg[i, 0], exgr_a=exg[i, 1],
+            exgl_b=exg[i, 2], exgr_b=exg[i, 3])
+        assert abs(got[i] - want) <= 1e-3 * max(1.0, abs(want)), i

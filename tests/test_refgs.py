@@ -17,15 +17,14 @@ from prrn_aln_tpu.io import SeqRecord
 from prrn_aln_tpu import refgs as rg
 from prrn_aln_tpu.utils.seqtools import translate
 
-NAS = Path("/root/reference/sample/nas")
-PAS = Path("/root/reference/sample/pas")
+FIX = Path(__file__).parent / "fixtures"
 TRUE_EXONS = [(66, 251), (307, 651)]
 
 
 @pytest.fixture(scope="module")
-def family():
-    g = io.sniff_and_read(NAS / "CET10B9")[0].seq.upper()[31549:32450]
-    recs = io.read_fasta(PAS / "ce13a17.fa")
+def family(cet10b9):
+    g = cet10b9(31549, 32450)
+    recs = io.read_fasta(FIX / "ce13a17_clean.fa")
     cds = "".join(g[a - 1:b] for a, b in TRUE_EXONS)
     aa1 = translate(ab.encode(cds, ab.DNA))
     members = [SeqRecord("ce13a1", aa1, exons=list(TRUE_EXONS))]

@@ -3,8 +3,8 @@ golden (aln -yl2 -L nas/CET10B9 pas/ce13a.msa).
 
 The full case is 34.9 kb x 526 aa with a ~35k-wide codon band (~19M DP
 cells); the oracle needs ~10 min and the device kernel a few minutes on
-CPU, so the end-to-end assertion is gated behind PRRN_FULL=1 (the
-driver bench runs on real TPU hardware).  The golden's exon table is
+CPU, so the end-to-end assertion is gated behind PRRN_FULL=1.  The
+golden's exon table is
 parsed and asserted unconditionally so the expected structure is pinned
 in-repo.
 """

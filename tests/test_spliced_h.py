@@ -15,8 +15,6 @@ from prrn_aln_tpu.splice.penalty import IntronPenalty
 from prrn_aln_tpu.ops.spliced_h_np import forward_h, HParams
 
 FIX = Path(__file__).parent / "fixtures"
-NAS = Path("/root/reference/sample/nas")
-PAS = Path("/root/reference/sample/pas")
 
 
 def test_nuc2tron_known_codons():
@@ -40,13 +38,10 @@ def test_tron_matrix_props():
 
 
 @pytest.fixture(scope="module")
-def mini():
+def mini(cet10b9, ce13a1):
     """Mini gene-prediction case: CET10B9[31550:32450] x ce13a1[:172]
     (one intron; reference aln -yl2 -L finds join(66..251,307..651))."""
-    g = io.sniff_and_read(NAS / "CET10B9")[0].seq.upper()[31549:32450]
-    recs = io.read_fasta(PAS / "ce13a17.fa")
-    p = {r.name: r.seq for r in recs}["ce13a1"][:172]
-    return g, p
+    return cet10b9(31549, 32450), ce13a1[:172]
 
 
 def test_forward_h_mini_structure(mini):

@@ -5,7 +5,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from prrn_aln_tpu import io, scoring, alphabet as ab
+from prrn_aln_tpu import scoring, alphabet as ab
 from prrn_aln_tpu.config import default_params
 from prrn_aln_tpu.splice import tron
 from prrn_aln_tpu.splice.exin import build_exin
@@ -14,8 +14,6 @@ from prrn_aln_tpu.ops.spliced_h_np import forward_h, HParams
 from prrn_aln_tpu.ops.spliced_h_jax import forward_h_device
 
 FIX = Path(__file__).parent / "fixtures"
-NAS = Path("/root/reference/sample/nas")
-PAS = Path("/root/reference/sample/pas")
 
 
 def _qprof(a):
@@ -46,30 +44,27 @@ def _run_both(g, p, sh_pct=50, api=None):
     return (s_np, k_np), (s_dv, k_dv)
 
 
-def test_device_h_mini_gene():
+def test_device_h_mini_gene(cet10b9, ce13a1):
     """CET10B9 slice x ce13a1 prefix — the one-intron mini case."""
-    g = io.sniff_and_read(NAS / "CET10B9")[0].seq.upper()[31549:32450]
-    recs = io.read_fasta(PAS / "ce13a17.fa")
-    p = {r.name: r.seq for r in recs}["ce13a1"][:172]
+    g = cet10b9(31549, 32450)
+    p = ce13a1[:172]
     (s_np, k_np), (s_dv, k_dv) = _run_both(g, p)
     assert abs(s_dv - s_np) <= 1e-3 * max(1.0, abs(s_np))
     assert k_dv == k_np
 
 
-def test_device_h_two_introns():
+def test_device_h_two_introns(cet10b9, ce13a1):
     """Longer CET10B9 slice covering two introns of ce13a1."""
-    g = io.sniff_and_read(NAS / "CET10B9")[0].seq.upper()[31549:33100]
-    recs = io.read_fasta(PAS / "ce13a17.fa")
-    p = {r.name: r.seq for r in recs}["ce13a1"][:290]
+    g = cet10b9(31549, 33100)
+    p = ce13a1[:290]
     (s_np, k_np), (s_dv, k_dv) = _run_both(g, p)
     assert abs(s_dv - s_np) <= 1e-3 * max(1.0, abs(s_np))
     assert k_dv == k_np
 
 
-def test_device_h_with_intron_bonus():
-    g = io.sniff_and_read(NAS / "CET10B9")[0].seq.upper()[31549:32450]
-    recs = io.read_fasta(PAS / "ce13a17.fa")
-    p = {r.name: r.seq for r in recs}["ce13a1"][:172]
+def test_device_h_with_intron_bonus(cet10b9, ce13a1):
+    g = cet10b9(31549, 32450)
+    p = ce13a1[:172]
     pos = np.array([3 * 62])
 
     def api(pt):
@@ -80,11 +75,10 @@ def test_device_h_with_intron_bonus():
     assert k_dv == k_np
 
 
-def test_device_h_no_intron_plain():
+def test_device_h_no_intron_plain(cet10b9, ce13a1):
     """Exon-only fragment (pure diagonal/frameshift machinery)."""
-    g = io.sniff_and_read(NAS / "CET10B9")[0].seq.upper()[31614:31800]
-    recs = io.read_fasta(PAS / "ce13a17.fa")
-    p = {r.name: r.seq for r in recs}["ce13a1"][:60]
+    g = cet10b9(31614, 31800)
+    p = ce13a1[:60]
     (s_np, k_np), (s_dv, k_dv) = _run_both(g, p, sh_pct=100)
     assert abs(s_dv - s_np) <= 1e-3 * max(1.0, abs(s_np))
     assert k_dv == k_np

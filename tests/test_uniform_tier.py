@@ -44,11 +44,3 @@ def test_gapped_side_not_collapsed():
     m = Msa(codes=codes, molc=ab.PROTEIN, names=list("abcd"))
     m.prepare(26)
     assert not gops.uniform_side(m)
-
-
-def test_wide_group_vmem_fallback():
-    # the Pallas engine's crg blobs grow as an*bn; past the VMEM
-    # budget the dispatcher must select the scan engine
-    assert gops._pallas_fits(8, 8, 384)
-    assert gops._pallas_fits(32, 32, 384)
-    assert not gops._pallas_fits(64, 64, 384)
